@@ -1,9 +1,9 @@
 """4096-variant design sweep in one batched solve.
 
 Vary the prescribed pull displacement and the Young's-modulus scale across
-4096 variants of a tensile plate; all variants solve concurrently as TPU
-lanes, preconditioned by ONE shared multigrid hierarchy (~2300 solves/s on
-one v5e chip). Run:
+4096 variants of a tensile plate; all variants solve concurrently as
+lanes of one batched field, preconditioned by ONE shared multigrid
+hierarchy. Run:
 
     python examples/design_sweep.py [n_variants]
 """

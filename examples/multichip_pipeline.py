@@ -6,15 +6,15 @@ meshed, node-sharded over a `jax.sharding.Mesh`, solved with halo-exchange
 PCG (sharded AMG preconditioner), and the recovered `SolveResult` is
 cross-checked against the single-device `solve_system` on the same
 problem. Reference bar: kyle-tennison/Magnetite src/main.rs:53-76 +
-src/solver.rs:412-535 (one command does everything — here on N chips).
+src/solver.rs:412-535 (one command does everything — here on N devices).
 
 Run (simulating 8 devices on CPU, the same mesh the driver dryrun uses):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/multichip_pipeline.py
 
-On real multi-chip TPU hardware, drop the env vars — every visible chip
-joins the mesh. The CLI equivalent is `magnetite-tpu ... --shard`.
+On a multi-GPU host, drop the env vars — every visible GPU joins the
+mesh. The CLI equivalent is `magnetite-tpu ... --shard`.
 """
 
 import os

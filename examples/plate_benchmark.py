@@ -2,8 +2,8 @@
 
 The scale showcase: a structured 512x1024-cell annulus grid (1,048,576 CST
 elements), solved with the stencil operator + geometric multigrid + f64/f32
-mixed-precision refinement. On one TPU v5e chip the solve runs in ~0.33 s;
-on CPU it works identically (slower). Run:
+mixed-precision refinement. It runs identically on the GPU and the CPU
+(slower). Run:
 
     python examples/plate_benchmark.py [n_radial n_tangential]
 """

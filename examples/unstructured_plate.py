@@ -6,8 +6,7 @@ triangulates a plate-with-hole, the solver auto-selects the banded DIA
 operator, and smoothed-aggregation AMG (fem/amg.py) holds CG at ~15
 iterations regardless of mesh size. With --precision mixed semantics
 (refine="on"), f64 CG runs with the f32 V-cycle preconditioner for
-1e-8-grade residuals at f32 speed. On one TPU v5e the 997k-element warm
-solve takes ~1 s. Run:
+1e-8-grade residuals at f32 V-cycle cost. Run:
 
     python examples/unstructured_plate.py [h]
 

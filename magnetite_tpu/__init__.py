@@ -1,12 +1,13 @@
-"""magnetite_tpu — a TPU-native 2D plane-stress FEA framework.
+"""magnetite_tpu — a JAX 2D plane-stress FEA framework.
 
 A from-scratch rebuild of the capabilities of kyle-tennison/Magnetite
 (a Rust CLI: SVG/CSV geometry -> Gmsh triangle mesh -> CST stiffness ->
-CG solve -> stress recovery -> matplotlib plot), redesigned for TPU:
+CG solve -> stress recovery -> matplotlib plot), redesigned for an
+accelerator:
 
   * host front-end: SVG/CSV parsing, meshing (built-in Delaunay backend or
     Gmsh subprocess), boundary-condition rules -> flat device arrays
-  * device core (JAX/XLA/Pallas): closed-form fused element assembly into
+  * device core (JAX/XLA): closed-form fused element assembly into
     banded/stencil/ELL operators, geometric-multigrid and
     smoothed-aggregation-AMG preconditioned CG (mesh-independent iteration
     counts on any triangle mesh), mixed-precision f64/f32 solves, lane-

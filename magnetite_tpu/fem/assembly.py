@@ -4,7 +4,7 @@ The reference assembles a DENSE (2N)^2 matrix by scalar scatter-adds
 (src/solver.rs:290-331) and then rescans it to CSR (src/solver.rs:124-137) --
 O(N^2) memory, the one thing this rebuild must not replicate.
 
-TPU-native design:
+Design:
   * Sparsity STRUCTURE (which node couples to which) depends only on mesh
     connectivity -- built once on host with numpy (`build_ell_structure`),
     cached per mesh. Node-block granularity: each coupled node pair is one

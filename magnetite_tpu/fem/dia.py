@@ -1,9 +1,4 @@
-"""DIA (diagonal-band) sparse operator: the TPU-native SpMV.
-
-Why not gather-based ELL on TPU: XLA lowers unstructured gathers to ~5 GB/s
-on v5e (measured), and Mosaic's in-kernel dynamic gather is limited to
-8-sublane tiles -- random access is simply not what the VPU does. What the
-VPU does at streaming speed is shifted reads.
+"""DIA (diagonal-band) sparse operator: SpMV as shifted reads.
 
 Meshes produced by this framework's generators and its hex-lattice Delaunay
 mesher have near-structured connectivity: after node numbering, the offset
@@ -13,10 +8,8 @@ ring wraps). Storing one band per offset turns SpMV into
 
     y[i,n] = sum_d sum_j band[d,i,j,n] * u[j, n + offset_d]
 
--- static rolls + fused multiply-adds over [2, N] vectors with N minormost
-(perfect lane layout), no gather anywhere; an order of magnitude faster
-than the gather formulation on v5e (XLA lowers unstructured gathers to a
-few GB/s).
+-- static rolls + fused multiply-adds over [2, N] vectors with N minormost,
+no index arrays: XLA fuses the whole sum into one streaming pass.
 
 Falls back to ELL (operator.py) when a mesh's offset set is too large
 (pathological unstructured numbering); `renumber` in meshing.reorder reduces
@@ -93,8 +86,8 @@ class HybridStructure:
 
     Meshes with near-lattice numbering (the built-in mesher's row-sorted
     output) concentrate >90% of couplings in a few dozen (col-row) offsets;
-    the tail goes into a scatter-add remainder so the hot SpMV stays
-    gather-free.
+    the tail goes into a scatter-add remainder so the hot SpMV is almost
+    all band rolls.
 
     offsets: [D] chosen band offsets (0 always included).
     slot_ids: [E*9] destinations: band slots in [0, D*N), remainder blocks
@@ -240,9 +233,8 @@ def assemble_dia_fused(
     """Stiffness + band scatter without the [E,6,6] tensor -> [D,2,2,N].
 
     Four scalar segment_sums over [3,3,E] closed-form block fields (see
-    element.pair_block_fields) instead of one [E*9,2,2] block scatter --
-    the layout that keeps the f64 refinement path fast on TPU (2x2 block
-    scatters tile-pad catastrophically under f64 emulation)."""
+    element.pair_block_fields) instead of one [E*9,2,2] block scatter, so
+    no [E,6,6] stiffness tensor is ever materialised."""
     from .element import pair_block_fields
 
     fields = pair_block_fields(coords, tris, e_mod, nu, t)
@@ -283,8 +275,8 @@ def dia_matvec_blocks(
     for d_idx, off in enumerate(offsets):
         shifted = jnp.roll(u, -off, axis=1) if off != 0 else u
         b = bands[d_idx]
-        # explicit block FMAs: stays on the VPU in full f32 (an einsum
-        # contraction would lower to bf16 MXU passes)
+        # explicit block FMAs: exact in the field dtype, and fused with
+        # the rolls (an einsum would be a separate contraction)
         for i in range(m):
             acc = ys[i]
             for j in range(m):
@@ -304,26 +296,8 @@ def dia_diag_blocks(bands: jax.Array, offsets: tuple[int, ...]) -> jax.Array:
     return bands[zero_idx]
 
 
-def make_dia_operator(
-    bands: jax.Array, offsets: tuple[int, ...], impl: str = "auto"
-):
-    """op(u [2, N]) -> K u. On TPU (impl='auto') this pre-tiles the bands
-    once into the Pallas DIA kernel's contiguous-DMA layout (~5x the XLA
-    roll formulation at 41 bands / 500k nodes); under jit the pre-tile is
-    loop-invariant and hoisted out of CG/smoother loops. f64 bands (the
-    refinement CG operator) always take the XLA path -- the kernel is
-    f32-only."""
-    if impl == "auto" and jax.default_backend() == "tpu":
-        from ..pallas.dia_kernel import (
-            dia_pallas_applicable,
-            make_pallas_dia_operator,
-        )
-
-        offs = tuple(int(o) for o in offsets)
-        if dia_pallas_applicable(
-            offs, int(bands.shape[-1]), bands.dtype, m=int(bands.shape[1])
-        ):
-            return make_pallas_dia_operator(bands, offs)
+def make_dia_operator(bands: jax.Array, offsets: tuple[int, ...]):
+    """op(u [2, N]) -> K u, closing over the bands."""
 
     def op(u: jax.Array) -> jax.Array:
         return dia_matvec(bands, offsets, u)
@@ -337,23 +311,12 @@ def make_hybrid_operator(
     rem_vals: jax.Array,
     rem_rows: jax.Array,
     rem_cols: jax.Array,
-    impl: str = "auto",
-    dia_op=None,
 ):
-    """op(u [2, N]) -> K u for the band + COO-remainder format, with the
-    band part on the Pallas kernel when applicable (the remainder is a
-    small scatter-add either way). `dia_op` overrides the band operator
-    (the refined solve injects the double-float kernel here)."""
-    if dia_op is None:
-        dia_op = make_dia_operator(bands, offsets, impl=impl)
+    """op(u [2, N]) -> K u for the band + COO-remainder format (see
+    hybrid_matvec)."""
 
     def op(u: jax.Array) -> jax.Array:
-        y = dia_op(u)
-        ug = u[:, rem_cols]  # [2, R]
-        contrib = jnp.einsum(
-            "rij,jr->ir", rem_vals, ug, precision="highest"
-        )
-        return y.at[:, rem_rows].add(contrib)
+        return hybrid_matvec(bands, offsets, rem_vals, rem_rows, rem_cols, u)
 
     return op
 

@@ -91,10 +91,9 @@ def pair_block_fields(
     the 2x2 block coupling local nodes (a, b) of every element, WITHOUT
     materializing the [E,6,6] stiffness tensor. Same math as
     `element_stiffness_matrices` (k_ab = t/(4A) * B_a^T D B_b expanded;
-    reference src/solver.rs:204-278) but laid out as TPU-tileable scalar
-    planes -- the f64 path of the irregular assemblies (DIA/hybrid/ELL)
-    needs this: [E*9,2,2] block scatters tile-pad 2x2 to 8x128 and run
-    ~13x slower under f64 emulation.
+    reference src/solver.rs:204-278) but laid out as dense scalar planes,
+    so the irregular assemblies (DIA/hybrid/ELL) scatter four scalar
+    fields instead of [E*9,2,2] blocks with tiny trailing dimensions.
     """
     at = tris.astype(jnp.int32).T  # [3, E]
     p = coords[at]  # [3, E, 2]

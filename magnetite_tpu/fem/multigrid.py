@@ -157,7 +157,7 @@ class MGLevel:
     diag_inv: jax.Array  # [2, 2, R, C] inverse center blocks (damped Jacobi)
     rows: int
     cols: int
-    op: Callable[[jax.Array], jax.Array] = None  # matvec (pre-tiled on TPU)
+    op: Callable[[jax.Array], jax.Array] = None  # level matvec
     # dense inverse of the whole level operator [2RC, 2RC], node-major
     # (set on the coarsest level when small): exact coarse-grid solve as one
     # matmul instead of dozens of smoothing sweeps
@@ -200,18 +200,8 @@ def stencil_to_dense_device(stencil: jax.Array, wrap_cols: bool) -> jax.Array:
 
 def dense_coarse_inverse(stencil: jax.Array, wrap_cols: bool) -> jax.Array:
     """Inverse of the (SPD, BC-reduced) level operator for exact coarse
-    solves; computed once per hierarchy build.
-
-    TPU has no f64 LU (XLA: "Only F32 and C64 types are implemented in
-    LuDecomposition"), so f64 hierarchies there factor in f32 -- plenty for
-    a preconditioner's coarse solve -- and cast back."""
-    dense = stencil_to_dense_device(stencil, wrap_cols)
-    if dense.dtype == jnp.float64 and jax.default_backend() == "tpu":
-        inv = jnp.linalg.inv(dense.astype(jnp.float32)).astype(dense.dtype)
-        # symmetrize: the f32 factorization's ~1e-7 asymmetry would break
-        # the V-cycle's SPD guarantee for f64 CG near tight tolerances
-        return 0.5 * (inv + inv.T)
-    return jnp.linalg.inv(dense)
+    solves; computed once per hierarchy build, in the stencil's dtype."""
+    return jnp.linalg.inv(stencil_to_dense_device(stencil, wrap_cols))
 
 
 def apply_dense_inverse(dense_inv: jax.Array, r: jax.Array) -> jax.Array:
@@ -264,9 +254,7 @@ def build_hierarchy(
     while len(levels) < max_levels and can_coarsen(rows, cols, wrap_cols):
         rc = (rows - 1) // 2 + 1
         cc = cols // 2 if wrap_cols else (cols - 1) // 2 + 1
-        # XLA impl here: RAP probing runs under vmap, where the Pallas
-        # kernel's whole-array VMEM residency would batch poorly
-        op = make_stencil_operator(levels[-1].stencil, wrap_cols, impl="xla")
+        op = make_stencil_operator(levels[-1].stencil, wrap_cols)
         coarse = galerkin_coarse_stencil(op, rc, cc, wrap_cols, dtype)
         levels.append(
             MGLevel(

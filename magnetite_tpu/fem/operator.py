@@ -27,8 +27,8 @@ MatVec = Callable[[jax.Array], jax.Array]
 def ell_matvec(ell_data: jax.Array, cols: jax.Array, u: jax.Array) -> jax.Array:
     """Block-ELL SpMV: y[n,i] = sum_k sum_j data[n,k,i,j] * u[cols[n,k], j].
 
-    One gather ([N,K,2]) + one contraction -- the TPU-friendly shape of the
-    reference's CSR SpMV (src/solver.rs:31-37).
+    One gather ([N,K,2]) + one contraction -- the fixed-width form of the
+    reference's CSR SpMV (src/solver.rs:31-37), with static shapes.
     """
     gathered = u[cols]  # [N, K, 2]
     return jnp.einsum("nkij,nkj->ni", ell_data, gathered, precision="highest")

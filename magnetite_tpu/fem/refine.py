@@ -1,9 +1,9 @@
 """Mixed-precision iterative refinement: f64 accuracy at f32 speed.
 
 The reference solves everything in f64 on the host CPU
-(/root/reference/src/solver.rs:295-296, DMatrix<f64>). TPUs have no fast
-f64 path -- the MXU/VPU are f32/bf16 -- so a pure-f64 solve wastes the
-hardware. The classical fix is iterative refinement:
+(/root/reference/src/solver.rs:295-296, DMatrix<f64>). A bandwidth-bound
+solve moves half the bytes per iteration in f32, and f32 alone cannot
+reach f64-grade residuals. The classical fix is iterative refinement:
 
     repeat:  r = b - A x          (f64 operator: exact residual)
              d ~= A^-1 r          (f32 PCG + multigrid: all the iterations)
@@ -12,8 +12,7 @@ hardware. The classical fix is iterative refinement:
 Each pass contracts the true f64 residual by roughly the accuracy of the
 inner f32 solve (~1e-5 relative), so two or three passes reach 1e-8..1e-12
 relative residual while >95% of the work (the inner CG/smoother matvecs)
-runs through the f32 Pallas stencil kernel at HBM-roofline speed. The f64
-matvec runs a handful of times per solve via XLA's (emulated) f64 path.
+runs on f32 fields. The f64 matvec runs a handful of times per solve.
 
 Requires jax_enable_x64; `fem/solve.py` engages it automatically when the
 requested tolerance is below what f32 can reach ("auto" refine mode).

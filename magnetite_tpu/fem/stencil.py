@@ -3,8 +3,8 @@
 For meshes whose nodes form a logical (rows x cols) grid (Mesh.grid_shape),
 every stiffness coupling is between grid neighbors: (dr, dt) in {-1,0,1}^2,
 with the col axis optionally periodic (annulus wrap). The operator is stored
-as stencil[9, 2, 2, rows, cols] -- cols minormost, perfect TPU lane layout --
-and SpMV is nine shifted fused multiply-adds on [2, rows, cols] fields:
+as stencil[9, 2, 2, rows, cols] -- cols minormost, so every shifted read is
+contiguous -- and SpMV is nine shifted fused multiply-adds on [2, rows, cols] fields:
 
     y[i,r,c] = sum_{dr,dt} sum_j stencil[(dr,dt),i,j,r,c] * u[j, r+dr, c+dt]
 
@@ -97,10 +97,9 @@ def assemble_stencil_fused(
 
     with ba = y_{a+1}-y_{a+2}, ga = x_{a+2}-x_{a+1} and d0 = E/(1-nu^2),
     d1 = nu*d0, d2 = (1-nu)/2*d0. Each of the four components is a scalar
-    field over pairs, laid out [3, 3, E] with E minormost -- every buffer in
-    the chain is TPU-tileable, which keeps the f64 path compilable at 1M+
-    elements (the [E,6,6] form tile-pads 6x6 blocks to 8x128 and explodes
-    to tens of GB under f64 emulation).
+    field over pairs, laid out [3, 3, E] with E minormost, so every buffer
+    in the chain is a dense elementwise field with no small trailing block
+    dimensions.
     """
     tris = tris.astype(jnp.int32)
     at = tris.T  # [3, E]
@@ -174,8 +173,7 @@ def assemble_stencil_structured(
     (r,t)-(r+1,t+1) diagonal, the convention of meshing.generators), so the
     segment_sum scatter disappears entirely: each of the 2 triangle types
     x 9 node pairs contributes one shifted add of a per-cell value grid into
-    the stencil band -- pure rolls/pads/FMAs, which is what makes the f64
-    operator path fast on TPU (the general f64 scatter is ~13x slower).
+    the stencil band -- pure rolls/pads/FMAs, no scatter at all.
 
     Orientation-independent: uses |2A|, and the beta/gamma products are
     invariant under vertex-order reversal, so the generators' per-element
@@ -263,10 +261,11 @@ def shift2d(u: jax.Array, dr: int, dt: int, wrap_cols: bool) -> jax.Array:
     return out
 
 
-def stencil_matvec_xla(
+def stencil_matvec(
     stencil: jax.Array, u: jax.Array, wrap_cols: bool
 ) -> jax.Array:
-    """y = K u on grid fields u [2, R, C] -> [2, R, C] (pure-XLA rolls).
+    """y = K u on grid fields u [2, R, C] -> [2, R, C] (shifted FMAs that
+    XLA fuses into one elementwise pass).
 
     Row-shift zero padding is belt-and-braces: boundary stencil entries that
     would reach outside the grid are already zero by construction.
@@ -276,30 +275,11 @@ def stencil_matvec_xla(
     for s, (dr, dt) in enumerate(OFFSETS):
         us = shift2d(u, dr, dt, wrap_cols)
         blk = stencil[s]
-        # explicit 2x2 block FMAs (VPU, full f32; einsum would go bf16 MXU)
+        # explicit 2x2 block FMAs: exact in the field dtype, and fused with
+        # the shifts (an einsum would be a separate contraction)
         y0 = y0 + blk[0, 0] * us[0] + blk[0, 1] * us[1]
         y1 = y1 + blk[1, 0] * us[0] + blk[1, 1] * us[1]
     return jnp.stack([y0, y1])
-
-
-def stencil_matvec(
-    stencil: jax.Array, u: jax.Array, wrap_cols: bool
-) -> jax.Array:
-    """y = K u, dispatching to the Pallas kernel on TPU when applicable.
-
-    One-shot form (pre-tiles the bands per call); loops should hold a
-    `make_stencil_operator` closure instead, which pre-tiles once.
-    """
-    rows, cols = stencil.shape[-2], stencil.shape[-1]
-    if jax.default_backend() == "tpu":
-        from ..pallas.stencil_kernel import (
-            pallas_applicable,
-            stencil_matvec_pallas,
-        )
-
-        if pallas_applicable(rows, cols, u.dtype):
-            return stencil_matvec_pallas(stencil, u, wrap_cols)
-    return stencil_matvec_xla(stencil, u, wrap_cols)
 
 
 def stencil_diag_blocks(stencil: jax.Array) -> jax.Array:
@@ -307,23 +287,11 @@ def stencil_diag_blocks(stencil: jax.Array) -> jax.Array:
     return stencil[CENTER]
 
 
-def make_stencil_operator(stencil: jax.Array, wrap_cols: bool, impl: str = "auto"):
-    """op(u) = K u. On TPU (impl='auto') this pre-tiles the bands once into
-    the Pallas kernel's contiguous-DMA layout (~90% of HBM roofline vs ~27%
-    for the XLA roll formulation); under jit the transpose is loop-invariant
-    and hoisted out of CG/smoother loops."""
-    rows, cols = stencil.shape[-2], stencil.shape[-1]
-    if impl == "auto" and jax.default_backend() == "tpu":
-        from ..pallas.stencil_kernel import (
-            make_pallas_stencil_operator,
-            pallas_applicable,
-        )
-
-        if pallas_applicable(rows, cols, stencil.dtype):
-            return make_pallas_stencil_operator(stencil, wrap_cols)
+def make_stencil_operator(stencil: jax.Array, wrap_cols: bool):
+    """op(u) = K u, closing over the stencil."""
 
     def op(u: jax.Array) -> jax.Array:
-        return stencil_matvec_xla(stencil, u, wrap_cols)
+        return stencil_matvec(stencil, u, wrap_cols)
 
     return op
 

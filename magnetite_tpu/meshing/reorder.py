@@ -1,13 +1,13 @@
 """Mesh node renumbering for band-friendly sparsity.
 
-The TPU solver's fast SpMV formats (DIA / hybrid, fem/dia.py) require the
+The solver's banded SpMV formats (DIA / hybrid, fem/dia.py) require the
 (col - row) offsets of the stiffness couplings to concentrate into a few
 dozen distinct values. The built-in Delaunay backend already emits such an
 ordering (lattice-row sort, meshing/delaunay_backend.py); meshes arriving
 from the gmsh backend or arbitrary ``.msh`` files (reference feeds these
 straight to its dense solver, src/mesher.rs:939-974) carry whatever node
 order the mesher produced and would otherwise fall to the gather-ELL
-operator -- the slowest formulation on TPU.
+operator, which reads an index array alongside every block.
 
 Two orderings:
 
@@ -205,7 +205,7 @@ def renumber(
         # large mesh where geometric row-binning failed (strongly graded /
         # band-hostile): RCM's level-synchronous loop costs seconds even at
         # ~1M nodes -- orders of magnitude cheaper than silently landing on
-        # the gather-ELL operator, the slowest formulation on TPU
+        # the gather-ELL operator
         tried_rcm = True
         candidates = [rcm_order(mesh.tris, n)]
     if best[3].remainder_frac > 0.0:

@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ host runtime.
 
-The device compute path is JAX/XLA/Pallas; the host runtime around it
+The device compute path is JAX/XLA; the host runtime around it
 (MSH parsing, sparsity-structure building) has C++ fast paths here, the
 analog of the reference's compiled Rust host loops. Everything degrades
 gracefully to the numpy implementations when the shared library is missing

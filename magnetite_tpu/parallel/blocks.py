@@ -46,8 +46,9 @@ def guarded_inv2(d):
 def apply_blocks(d, r):
     """Per-block 2x2 apply: d [2, 2, *dims] @ r [2, *dims] -> [2, *dims].
 
-    Explicit FMAs (VPU, full f32) -- an einsum would route the tiny
-    contractions to the bf16 MXU. One implementation keeps the smoother /
+    Explicit FMAs -- exact in the field dtype and fused with their
+    neighbours, where an einsum would be a separate contraction (and an
+    f32 one may run in TF32 on the GPU). One implementation keeps the smoother /
     block-Jacobi apply identical across the sharded stencil and DIA paths."""
     return jnp.stack(
         [

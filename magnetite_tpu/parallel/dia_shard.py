@@ -9,7 +9,7 @@ contiguous blocks makes the operator's communication a fixed-width halo:
     per matvec: 2 x jax.lax.ppermute of a [2, H] slab (+ psum scalars),
 
 H ~ one lattice row (~sqrt(N) nodes) regardless of shard count -- tens of
-KB over ICI per iteration at 1M nodes, vs the all-gather ELL formulation's
+KB between devices per iteration at 1M nodes, vs the all-gather ELL formulation's
 full-vector exchange (parallel/sharding.py, kept as the fallback for
 band-hostile meshes).
 
@@ -115,39 +115,10 @@ def make_halo_dia_operator(bands_local, offsets: tuple, halo: int, axis: str):
                 u_ext, halo + off, halo + off + nl, axis=1
             )
             b = bands_local[d_idx]
-            # explicit 2x2 block FMAs (VPU full f32; einsum would go MXU)
+            # explicit 2x2 block FMAs, fused with the slices
             y0 = y0 + b[0, 0] * us[0] + b[0, 1] * us[1]
             y1 = y1 + b[1, 0] * us[0] + b[1, 1] * us[1]
         return jnp.stack([y0, y1])
-
-    return op
-
-
-def make_halo_df_dia_operator(
-    bands_local, offsets: tuple, halo: int, axis: str, interpret=False
-):
-    """Shard-local f64-grade y = K u via the double-float Pallas band
-    kernel (pallas/dia_kernel.make_df_dia_operator): one halo exchange,
-    then the compensated f32-pair DIA matvec on the halo-EXTENDED vector
-    with edge-padded bands. Every kept row i in [halo, halo+nl) reaches
-    i+off within [0, nl+2*halo) (|off| <= halo by `prepare`), so the
-    kernel's circular wrap never touches real data; rows outside the kept
-    window carry zero bands and are sliced away.
-
-    `bands_local` must be f64; callers gate on
-    `df_dia_pallas_applicable(offsets, nl + 2*halo)`."""
-    from ..pallas.dia_kernel import make_df_dia_operator
-
-    nl = int(bands_local.shape[-1])
-    bands_ext = jnp.pad(
-        bands_local, ((0, 0), (0, 0), (0, 0), (halo, halo))
-    )
-    df_op = make_df_dia_operator(bands_ext, offsets, interpret=interpret)
-
-    def op(u_local):
-        u_ext = exchange_halo(u_local, halo, axis)
-        y_ext = df_op(u_ext)
-        return jax.lax.slice_in_dim(y_ext, halo, halo + nl, axis=1)
 
     return op
 
@@ -554,7 +525,6 @@ def _local_dia_solve(
     maxiter,
     amg_sweeps=0,
     history=0,
-    df_impl="",
 ):
     f32 = jnp.float32
 
@@ -572,16 +542,6 @@ def _local_dia_solve(
         return op
 
     op = reduced(raw_mv, free)
-    if df_impl and kind == "dia":
-        # refined f64 CG's matvec as compensated f32 pairs (shard-local
-        # double-float Pallas); rhs and ku force recovery keep raw_mv
-        op = reduced(
-            make_halo_df_dia_operator(
-                bands, offsets, halo, axis,
-                interpret=df_impl == "interpret",
-            ),
-            free,
-        )
     bands32 = bands.astype(f32)
     free32 = free.astype(f32)
     mv32 = make_mv(bands32)
@@ -648,30 +608,6 @@ def _local_dia_solve(
     )
 
 
-def resolve_df_impl(
-    problem: "ShardedDiaProblem", refined: bool, rtol: float, df_matvec: str
-) -> str:
-    """Which double-float matvec the refined sharded CG will run:
-    "" (emulated f64), "pallas", or "interpret". Mirrors
-    fem/solve.compile_problem's SolverOptions.df_matvec gate, with the
-    kernel applicability checked on the halo-EXTENDED shard-local size."""
-    if not refined or problem.kind != "dia" or df_matvec == "off":
-        return ""
-    from ..pallas.dia_kernel import df_dia_pallas_applicable
-
-    n_shards = problem.device_mesh.shape[problem.axis]
-    nl = problem.bands.shape[-1] // n_shards
-    applicable = df_dia_pallas_applicable(
-        tuple(int(o) for o in problem.offsets), nl + 2 * problem.halo
-    )
-    if df_matvec == "interpret":
-        return "interpret" if applicable else ""
-    if applicable and jax.default_backend() == "tpu":
-        if df_matvec == "on" or rtol >= 1e-8:
-            return "pallas"
-    return ""
-
-
 def sharded_dia_pcg_solve(
     problem: ShardedDiaProblem,
     rtol: float = 1e-6,
@@ -679,17 +615,12 @@ def sharded_dia_pcg_solve(
     refined: bool = False,
     amg_sweeps: int = 0,
     history: int = 0,
-    df_matvec: str = "auto",
 ):
     """Node-sharded AMG-PCG. refined=True needs f64 problem arrays (f64 CG
     with the f32 V-cycle, 1e-8-grade global residuals). amg_sweeps pins
     the V-cycle schedule (0 = auto, fem.amg.amg_sweep_schedule). history
     > 0 records the GLOBAL ||r|| of the first `history` CG iterations
-    (CGResult.history, replicated). df_matvec runs the refined CG's band
-    matvec as shard-local compensated f32 pairs in the double-float Pallas
-    kernel (same semantics as SolverOptions.df_matvec: "auto" on TPU when
-    rtol clears the ~2e-9 floor, "on", "off", "interpret" for CPU parity
-    tests). Returns (CGResult, ku) with x, ku [2, Np] node-sharded."""
+    (CGResult.history, replicated). Returns (CGResult, ku) with x, ku [2, Np] node-sharded."""
     if refined and problem.bands.dtype != jnp.float64:
         raise SolverError(
             "refined sharded solve needs dtype=np.float64 problem arrays"
@@ -707,7 +638,6 @@ def sharded_dia_pcg_solve(
             )
             rtol = floor
     axis = problem.axis
-    df_impl = resolve_df_impl(problem, refined, rtol, df_matvec)
     spec_b = (
         P(None, None, None, axis)
         if problem.kind == "dia"
@@ -733,7 +663,6 @@ def sharded_dia_pcg_solve(
                 maxiter=maxiter,
                 amg_sweeps=int(amg_sweeps),
                 history=int(history),
-                df_impl=df_impl,
             ),
             mesh=problem.device_mesh,
             in_specs=(spec_b, spec_v, spec_v, spec_v, amg_spec, spec_lidx),

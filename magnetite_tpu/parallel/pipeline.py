@@ -21,8 +21,8 @@ produces the SAME `fem.solve.SolveResult` a single-chip `solve_system` does:
 Entry points: `compile_sharded_problem` -> `CompiledShardedProblem.solve()`,
 or `fem.solve.solve_system(..., device_mesh=...)`, or the CLI `--shard`
 flag. Operator dispatch mirrors the single-chip auto rules: structured
-grid-local meshes take the row-sharded stencil path (Pallas-backed halo
-matvec + sharded multigrid), everything else the node-sharded DIA+AMG path
+grid-local meshes take the row-sharded stencil path (halo matvec +
+sharded multigrid), everything else the node-sharded DIA+AMG path
 (band-renumbering arbitrary meshes first).
 """
 
@@ -55,7 +55,7 @@ def parse_device_mesh(layout: str) -> Mesh:
     """Build a device mesh from a CLI layout string.
 
     "auto" (or "") -> the 1D mesh over every visible device; "RxC" (e.g.
-    "2x4") -> a 2D rows x cols mesh for torus-sharded structured grids.
+    "2x2") -> a 2D rows x cols mesh for grid-sharded structured grids.
     R*C must equal the visible device count."""
     from ..errors import InputError
 
@@ -202,8 +202,8 @@ def _stencil_recover_local(
     from .dia_shard import exchange_halo
     from .stencil_shard import make_halo_stencil_operator
 
-    # one matvec for ||b||: the XLA roll path avoids re-tiling Pallas layouts
-    raw_mv = make_halo_stencil_operator(raw, axis, wrap, impl="xla")
+    # one matvec for ||b||
+    raw_mv = make_halo_stencil_operator(raw, axis, wrap)
     b = free_g * (f_g - raw_mv((1.0 - free_g) * u_fixed_g)) + (
         1.0 - free_g
     ) * u_fixed_g
@@ -260,9 +260,7 @@ def _stencil_recover_local_2d(
         make_halo_stencil_operator_2d,
     )
 
-    raw_mv = make_halo_stencil_operator_2d(
-        raw, row_axis, col_axis, wrap, impl="xla"
-    )
+    raw_mv = make_halo_stencil_operator_2d(raw, row_axis, col_axis, wrap)
     b = free_g * (f_g - raw_mv((1.0 - free_g) * u_fixed_g)) + (
         1.0 - free_g
     ) * u_fixed_g
@@ -471,7 +469,7 @@ def compile_sharded_problem(
     the same deep-accuracy schemes as single-chip (mixed-precision
     refinement on stencil, f64-CG + f32 V-cycle on DIA).
 
-    A TWO-axis device mesh lays a structured grid out over a 2D ICI torus
+    A TWO-axis device mesh lays a structured grid out over a 2D device grid
     (rows x cols tiles, `stencil_shard`'s 2D halo operator + sharded
     multigrid) with the same end-to-end recovery; unstructured meshes are
     node-sharded and need a 1D device mesh.
@@ -720,7 +718,6 @@ def _compile_sharded(
         refined=dia_refined,
         amg_sweeps=int(options.amg_sweeps),
         history=int(options.residual_history),
-        df_matvec=options.df_matvec,
     )
     spec_b = (
         P(None, None, None, axis)
@@ -792,8 +789,8 @@ def _compile_sharded_2d(
 
     Same end-to-end contract as the 1D path (sharded solve + force/stress
     recovery -> SolveResult); the operator/multigrid run over
-    stencil_shard's 2D halo machinery, so halo traffic rides both ICI
-    torus axes. The device mesh's FIRST axis shards grid rows, the second
+    stencil_shard's 2D halo machinery, so halo traffic runs along both
+    device-mesh axes. The device mesh's FIRST axis shards grid rows, the second
     grid cols."""
     from .stencil_shard import (
         prepare_sharded_stencil_problem_2d,

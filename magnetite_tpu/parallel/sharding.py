@@ -1,14 +1,14 @@
 """Multi-chip sharded solves over a jax.sharding.Mesh.
 
 The reference is strictly single-threaded (SURVEY.md section 2, native note);
-scaling there means a bigger dense matrix. Here the solve scales across TPU
-chips the XLA way: rows of the block-ELL operator are sharded over a device
+scaling there means a bigger dense matrix. Here the solve scales across
+devices the XLA way: rows of the block-ELL operator are sharded over a device
 mesh axis, the PCG loop runs under `shard_map`, and the only communication
 per iteration is
 
-  * one `all_gather` of the displacement vector over ICI (u is tiny --
-    N*2*4 bytes -- vs the N*K*16-byte matrix read, so this rides well under
-    the HBM-bound SpMV), and
+  * one `all_gather` of the displacement vector (u is tiny -- N*2*4
+    bytes -- vs the N*K*16-byte matrix read, so this rides well under the
+    memory-bound SpMV), and
   * `psum` scalars for the CG dot products.
 
 Rows are padded to a multiple of the shard count with identity rows (free

@@ -1,22 +1,18 @@
 """Row-sharded stencil PCG over a device mesh: halo exchange, not gather.
 
 The ELL multi-chip path (parallel/sharding.py) all_gathers the displacement
-vector and gathers through column indices -- correct, but the gather
-formulation runs ~5 GB/s on TPU (fem/dia.py docstring). Structured-grid
-problems shard the [2, R, C] fields by ROWS instead: each chip owns a
-contiguous row band of the grid plus the stencil rows that act on it, and
-one 9-point matvec needs exactly ONE row of halo from each neighbor:
+vector and gathers through column indices -- correct, but it moves the whole
+vector every matvec. Structured-grid problems shard the [2, R, C] fields by
+ROWS instead: each device owns a contiguous row band of the grid plus the
+stencil rows that act on it, and one 9-point matvec needs exactly ONE row of halo from each neighbor:
 
     per iteration: 2 x jax.lax.ppermute of a [2, 1, C] row  (+ psum scalars)
 
-i.e. 8*C bytes over ICI per step vs the 8*R*C all_gather -- communication
-shrinks by the shard count. The shard-local compute runs through the SAME
-single-chip operator stack as the unsharded solver
-(fem/stencil.make_stencil_operator): on TPU, when the shard shape admits it,
-that is the pre-tiled Pallas band kernel at ~90% of HBM roofline; otherwise
-the XLA roll/FMA formulation (~27% of roofline -- the honest gap is
-measured in bench.py as spmv_gbps vs spmv_xla_gbps). The halo rows enter as
-one zero-row stencil pad, so the local kernel needs no halo-awareness.
+i.e. 8*C bytes between devices per step vs the 8*R*C all_gather --
+communication shrinks by the shard count. The shard-local compute runs
+through the SAME single-chip operator as the unsharded solver
+(fem/stencil.make_stencil_operator). The halo rows enter as one zero-row
+stencil pad, so the local operator needs no halo-awareness.
 
 Grid rows are never periodic (wrap is in columns, unsharded), so shard 0 /
 shard n-1 receive zeros from the missing neighbor -- exactly the zero
@@ -209,31 +205,20 @@ def make_halo_stencil_operator(
     st_local: jax.Array,  # [9, 2, 2, Rl, C]
     axis: str,
     wrap_cols: bool,
-    impl: str = "auto",
 ):
-    """Shard-local op(u) = K u: halo exchange + the single-chip kernel.
+    """Shard-local op(u) = K u: halo exchange + the single-chip operator.
 
     The local stencil is padded with one ZERO row above and below (done once
-    at closure creation, so the pre-tile/pad never re-runs inside CG loops);
+    at closure creation, so the pad never re-runs inside CG loops);
     applying the ordinary single-device operator to the halo-extended field
     then computes exactly the sharded rows -- output rows 0 and Rl+1 are
-    zero by construction and sliced off. impl: "auto" dispatches to the
-    Pallas band kernel on TPU when the shard shape admits it (f32, cols a
-    lane multiple), "xla" forces the roll formulation, "pallas_interpret"
-    runs the Pallas kernel in interpreter mode (CPU parity tests).
+    zero by construction and sliced off.
     """
     from ..fem.stencil import make_stencil_operator
 
     rl = st_local.shape[-2]
     st_ext = jnp.pad(st_local, ((0, 0), (0, 0), (0, 0), (1, 1), (0, 0)))
-    if impl == "pallas_interpret":
-        from ..pallas.stencil_kernel import make_pallas_stencil_operator
-
-        local_op = make_pallas_stencil_operator(
-            st_ext, wrap_cols, interpret=True
-        )
-    else:
-        local_op = make_stencil_operator(st_ext, wrap_cols, impl=impl)
+    local_op = make_stencil_operator(st_ext, wrap_cols)
 
     def op(u_local: jax.Array) -> jax.Array:
         y_ext = local_op(exchange_halo_rows(u_local, axis))
@@ -248,9 +233,8 @@ def halo_stencil_matvec(
     axis: str,
     wrap_cols: bool,
 ) -> jax.Array:
-    """One-shot y = K u per shard (XLA rolls): 2 single-row ppermutes +
-    local rolls/FMAs. Loops should hold a `make_halo_stencil_operator`
-    closure instead, which pre-tiles the Pallas layout once."""
+    """One-shot y = K u per shard: 2 single-row ppermutes + local
+    slices/rolls/FMAs (no padded copy of the stencil)."""
     rl = u_local.shape[-2]
     u_ext = exchange_halo_rows(u_local, axis)
 
@@ -266,7 +250,7 @@ def halo_stencil_matvec(
                 else:
                     us = us.at[..., : (-dt)].set(0.0)
         blk = st_local[s]
-        # explicit 2x2 block FMAs (VPU, full f32; einsum would go bf16 MXU)
+        # explicit 2x2 block FMAs, fused with the shifts
         y0 = y0 + blk[0, 0] * us[0] + blk[0, 1] * us[1]
         y1 = y1 + blk[1, 0] * us[0] + blk[1, 1] * us[1]
     return jnp.stack([y0, y1])
@@ -284,7 +268,6 @@ def _sharded_mg_preconditioner(
     rows: int,  # true (un-padded) row count
     sweeps: int = 2,
     omega: float = 0.7,
-    impl: str = "auto",
 ):
     """V-cycle with SHARDED fine-level smoothing + REPLICATED coarse solve.
 
@@ -317,7 +300,7 @@ def _sharded_mg_preconditioner(
     coarse_cycle = (
         vcycle_preconditioner(levels, wrap) if levels else None
     )
-    fine_op = make_halo_stencil_operator(reduced_local, axis, wrap, impl)
+    fine_op = make_halo_stencil_operator(reduced_local, axis, wrap)
 
     def smooth(e, r):
         for _ in range(sweeps):
@@ -362,16 +345,14 @@ def _local_pcg(
     rtol,
     maxiter,
     preconditioner,
-    impl="auto",
     history=0,
 ):
-    raw_mv = make_halo_stencil_operator(raw, axis, wrap, impl)
-    op = make_halo_stencil_operator(reduced, axis, wrap, impl)
+    raw_mv = make_halo_stencil_operator(raw, axis, wrap)
+    op = make_halo_stencil_operator(reduced, axis, wrap)
 
     if preconditioner == "multigrid":
         precond = _sharded_mg_preconditioner(
             reduced, diag_inv, coarse_levels, axis=axis, wrap=wrap, rows=rows,
-            impl=impl,
         )
     elif preconditioner == "none":
         precond = None
@@ -433,13 +414,11 @@ def sharded_stencil_pcg_solve(
     rtol: float = 1e-6,
     maxiter: int = 100_000,
     preconditioner: str = "auto",
-    impl: str = "auto",
     history: int = 0,
 ):
     """Row-sharded PCG. preconditioner: "auto" = multigrid when the grid can
     coarsen (sharded fine smoothing + replicated coarse V-cycle), else
-    block-Jacobi. impl selects the shard-local kernel
-    (make_halo_stencil_operator). history > 0 records the GLOBAL ||r|| of
+    block-Jacobi. history > 0 records the GLOBAL ||r|| of
     the first `history` iterations (CGResult.history, replicated). Returns
     (CGResult, ku) with grid-shaped row-sharded x [2, Rp, C] and ku = K x
     for force recovery."""
@@ -485,13 +464,11 @@ def sharded_stencil_pcg_solve(
                 rtol=rtol,
                 maxiter=maxiter,
                 preconditioner=preconditioner,
-                impl=impl,
                 history=int(history),
             ),
             mesh=problem.device_mesh,
             in_specs=(spec5, spec5, spec3, spec3, spec3, spec4, coarse_specs),
             out_specs=(spec3, spec3, P(), P(), P(), P()),
-            # pallas_call inside shard_map requires vma checking off
             check_vma=False,
         )
     )
@@ -532,7 +509,6 @@ def _local_refined(
     inner_maxiter,
     max_outer,
     preconditioner,
-    impl,
 ):
     """Shard-local mixed-precision refinement body (runs under shard_map).
 
@@ -543,11 +519,9 @@ def _local_refined(
     f32 = jnp.float32
     reduced32 = reduced64.astype(f32)
     diag_inv32 = diag_inv64.astype(f32)
-    # f64 operators take the XLA roll path (the Pallas kernel is f32-only);
-    # they run only a handful of times per solve
-    op64 = make_halo_stencil_operator(reduced64, axis, wrap, "xla")
-    raw_mv64 = make_halo_stencil_operator(raw64, axis, wrap, "xla")
-    op32 = make_halo_stencil_operator(reduced32, axis, wrap, impl)
+    op64 = make_halo_stencil_operator(reduced64, axis, wrap)
+    raw_mv64 = make_halo_stencil_operator(raw64, axis, wrap)
+    op32 = make_halo_stencil_operator(reduced32, axis, wrap)
 
     if preconditioner == "multigrid":
         coarse32 = tuple(
@@ -555,7 +529,6 @@ def _local_refined(
         )
         precond32 = _sharded_mg_preconditioner(
             reduced32, diag_inv32, coarse32, axis=axis, wrap=wrap, rows=rows,
-            impl=impl,
         )
     elif preconditioner == "none":
         precond32 = None
@@ -597,7 +570,6 @@ def sharded_stencil_refined_solve(
     inner_maxiter: int = 200,
     max_outer: int = 8,
     preconditioner: str = "auto",
-    impl: str = "auto",
 ):
     """Row-sharded f64/f32 mixed-precision refinement: 1e-8-grade residuals
     on a device mesh. The problem must be prepared with dtype=np.float64
@@ -640,7 +612,6 @@ def sharded_stencil_refined_solve(
                 inner_maxiter=inner_maxiter,
                 max_outer=max_outer,
                 preconditioner=preconditioner,
-                impl=impl,
             ),
             mesh=problem.device_mesh,
             in_specs=(spec5, spec5, spec3, spec3, spec3, spec4, coarse_specs),
@@ -667,11 +638,10 @@ def sharded_stencil_refined_solve(
 
 # ------------------------- 2D (rows x cols) sharding ------------------------
 #
-# TPU pods are 2D ICI tori; sharding BOTH grid axes maps the stencil's halo
-# traffic onto both torus dimensions and keeps per-chip boundary sizes
-# shrinking as the mesh grows in either direction. The 9-point stencil's
-# corner neighbors ride along for free with the standard sequential
-# exchange: rows first, then cols ON THE ROW-EXTENDED block. A wrapped
+# Sharding BOTH grid axes keeps each device's boundary (and so its halo
+# traffic) shrinking as the device grid grows in either direction. The
+# 9-point stencil's corner neighbors ride along for free with the standard
+# sequential exchange: rows first, then cols ON THE ROW-EXTENDED block. A wrapped
 # (annulus) col axis becomes a ppermute ring pair -- the local operator
 # never wraps, because the halos supply the periodic neighbors.
 
@@ -720,48 +690,17 @@ def make_halo_stencil_operator_2d(
     row_axis: str,
     col_axis: str,
     wrap_cols: bool,
-    impl: str = "auto",
 ):
     """2D-sharded op(u) = K u: one 8-neighbor halo exchange + the local
     stencil on the extended block (zero-padded local stencil, never
     wrapping -- periodicity lives entirely in the exchange).
 
-    The col-extended width cl+2 is never a lane multiple, so the Pallas
-    band kernel pads the extended block's cols up to one: the stencil pad
-    is free (pre-tiled once with zero blocks), the field pays one zero-col
-    concat per matvec -- noise next to the ~3.8x HBM-roofline win over the
-    XLA roll formulation. impl: "auto" (Pallas on TPU when applicable),
-    "xla", "pallas_interpret" (CPU parity tests).
     """
     from ..fem.stencil import make_stencil_operator
 
     rl, cl = st_local.shape[-2], st_local.shape[-1]
     st_ext = jnp.pad(st_local, ((0, 0),) * 3 + ((1, 1), (1, 1)))
-    ext_cols = cl + 2
-    lane_pad = (-ext_cols) % 128
-    use_pallas = impl == "pallas_interpret"
-    if impl == "auto" and jax.default_backend() == "tpu":
-        from ..pallas.stencil_kernel import pallas_applicable
-
-        use_pallas = pallas_applicable(
-            rl + 2, ext_cols + lane_pad, st_ext.dtype
-        )
-    if use_pallas:
-        from ..pallas.stencil_kernel import make_pallas_stencil_operator
-
-        st_k = jnp.pad(st_ext, ((0, 0),) * 3 + ((0, 0), (0, lane_pad)))
-        kernel_op = make_pallas_stencil_operator(
-            st_k, False, interpret=(impl == "pallas_interpret")
-        )
-
-        def apply_local(u_ext):
-            u_k = jnp.pad(u_ext, ((0, 0), (0, 0), (0, lane_pad)))
-            return kernel_op(u_k)[:, :, :ext_cols]
-
-    else:
-        apply_local = make_stencil_operator(
-            st_ext, wrap_cols=False, impl="xla"
-        )
+    apply_local = make_stencil_operator(st_ext, wrap_cols=False)
 
     def op(u_local):
         u_ext = exchange_halo_2d(u_local, row_axis, col_axis, wrap_cols)
@@ -783,15 +722,14 @@ def _sharded_mg_preconditioner_2d(
     cols: int,
     sweeps: int = 2,
     omega: float = 0.7,
-    impl: str = "auto",
 ):
-    """2D-torus V-cycle: SHARDED fine smoothing + REPLICATED coarse solve.
+    """2D-grid V-cycle: SHARDED fine smoothing + REPLICATED coarse solve.
 
     The 1D row-sharded layout's machinery (``_sharded_mg_preconditioner``)
-    carried to both torus axes: fine-level smoothing runs shard-local over
+    carried to both grid axes: fine-level smoothing runs shard-local over
     the 8-neighbor halo operator, and the coarse-grid correction gathers the
-    fine residual over BOTH device axes (two tiled all_gathers -- each rides
-    its own ICI dimension) and solves redundantly on every chip. Iteration
+    fine residual over BOTH device axes (two tiled all_gathers) and solves
+    redundantly on every device. Iteration
     counts match the 1D multigrid path; only the halo/gather pattern
     differs."""
     from ..fem.multigrid import (
@@ -814,7 +752,7 @@ def _sharded_mg_preconditioner_2d(
     ]
     coarse_cycle = vcycle_preconditioner(levels, wrap) if levels else None
     fine_op = make_halo_stencil_operator_2d(
-        reduced_local, row_axis, col_axis, wrap, impl
+        reduced_local, row_axis, col_axis, wrap
     )
 
     def smooth(e, r):
@@ -829,7 +767,7 @@ def _sharded_mg_preconditioner_2d(
         if coarse_cycle is None:
             return e
         res = r - fine_op(e)
-        # gather the fine residual over both torus axes; the coarse
+        # gather the fine residual over both device axes; the coarse
         # correction is replicated (redundant-coarse-solve layout)
         res_full = jax.lax.all_gather(res, row_axis, axis=1, tiled=True)
         res_full = jax.lax.all_gather(res_full, col_axis, axis=2, tiled=True)
@@ -922,20 +860,20 @@ def prepare_sharded_stencil_problem_2d(
 def _local_pcg_2d(
     reduced, raw, free_g, u_fixed_g, f_g, diag_inv, coarse_levels,
     *, row_axis, col_axis, wrap, rows, cols, rtol, maxiter, preconditioner,
-    impl="auto", history=0,
+    history=0,
 ):
     raw_mv = make_halo_stencil_operator_2d(
-        raw, row_axis, col_axis, wrap, impl
+        raw, row_axis, col_axis, wrap
     )
     op = make_halo_stencil_operator_2d(
-        reduced, row_axis, col_axis, wrap, impl
+        reduced, row_axis, col_axis, wrap
     )
 
     if preconditioner == "multigrid":
         precond = _sharded_mg_preconditioner_2d(
             reduced, diag_inv, coarse_levels,
             row_axis=row_axis, col_axis=col_axis, wrap=wrap,
-            rows=rows, cols=cols, impl=impl,
+            rows=rows, cols=cols,
         )
     elif preconditioner == "none":
         precond = None
@@ -970,7 +908,6 @@ def sharded_stencil_pcg_solve_2d(
     rtol: float = 1e-6,
     maxiter: int = 100_000,
     preconditioner: str = "auto",
-    impl: str = "auto",
     history: int = 0,
 ):
     """2D (rows x cols) sharded PCG. Returns (CGResult, ku) with x, ku
@@ -979,9 +916,7 @@ def sharded_stencil_pcg_solve_2d(
     Use `prepare_sharded_stencil_problem_2d` for the problem layout.
     preconditioner "auto" = multigrid when the grid can coarsen (sharded
     fine smoothing + both-axis-gathered replicated coarse V-cycle,
-    iteration counts matching the 1D path), else block-Jacobi. The
-    shard-local operator auto-dispatches to the Pallas band kernel on TPU
-    (lane-padded extended block)."""
+    iteration counts matching the 1D path), else block-Jacobi."""
     from ..fem.multigrid import can_coarsen
 
     row_axis, col_axis = problem.axis, problem.col_axis
@@ -1027,7 +962,6 @@ def sharded_stencil_pcg_solve_2d(
                 rtol=rtol,
                 maxiter=maxiter,
                 preconditioner=preconditioner,
-                impl=impl,
                 history=int(history),
             ),
             mesh=problem.device_mesh,
@@ -1057,18 +991,13 @@ def sharded_stencil_pcg_solve_2d(
 def _local_refined_2d(
     reduced64, raw64, free_g, u_fixed_g, f_g, diag_inv64, coarse_levels,
     *, row_axis, col_axis, wrap, rows, cols, rtol, maxiter, preconditioner,
-    impl="auto", history=0,
+    history=0,
 ):
     """2D-sharded f64 CG with an f32 preconditioner (multigrid when the
     grid coarsens, block-Jacobi otherwise)."""
     f32 = jnp.float32
-    # f64 operators take the XLA roll path (the Pallas kernel is f32-only)
-    raw_mv = make_halo_stencil_operator_2d(
-        raw64, row_axis, col_axis, wrap, "xla"
-    )
-    op = make_halo_stencil_operator_2d(
-        reduced64, row_axis, col_axis, wrap, "xla"
-    )
+    raw_mv = make_halo_stencil_operator_2d(raw64, row_axis, col_axis, wrap)
+    op = make_halo_stencil_operator_2d(reduced64, row_axis, col_axis, wrap)
     diag_inv32 = diag_inv64.astype(f32)
 
     if preconditioner == "multigrid":
@@ -1078,7 +1007,7 @@ def _local_refined_2d(
         mg32 = _sharded_mg_preconditioner_2d(
             reduced64.astype(f32), diag_inv32, coarse32,
             row_axis=row_axis, col_axis=col_axis, wrap=wrap,
-            rows=rows, cols=cols, impl=impl,
+            rows=rows, cols=cols,
         )
 
         def precond(r):
@@ -1117,7 +1046,6 @@ def sharded_stencil_refined_solve_2d(
     rtol: float = 1e-9,
     maxiter: int = 100_000,
     preconditioner: str = "auto",
-    impl: str = "auto",
     history: int = 0,
 ):
     """2D-sharded f64-accurate solve (prepare with dtype=np.float64).
@@ -1125,7 +1053,7 @@ def sharded_stencil_refined_solve_2d(
     f64 CG over the 2D halo operator with an f32 preconditioner (sharded
     multigrid when the grid coarsens -- iteration counts matching the 1D
     refined path -- block-Jacobi otherwise); psum reductions over both
-    torus axes."""
+    device axes."""
     from ..fem.multigrid import can_coarsen
 
     row_axis, col_axis = problem.axis, problem.col_axis
@@ -1165,7 +1093,6 @@ def sharded_stencil_refined_solve_2d(
                 rtol=rtol,
                 maxiter=maxiter,
                 preconditioner=preconditioner,
-                impl=impl,
                 history=int(history),
             ),
             mesh=problem.device_mesh,

@@ -252,7 +252,7 @@ def test_banded_coarse_levels_match_ell(plate):
     free = (~bca.u_known).astype(np.float64)
     setup = build_amg_setup(plate.coords, plate.tris, E, NU, T, free)
     amg = amg_device_arrays(setup, jnp.float64)
-    assert len(amg) == 6
+    assert len(amg) == 5
     coarse_bands = amg[4]
     assert len(coarse_bands) == len(setup.coarse_ops)
     # spatially-keyed aggregation keeps coarse graphs banded
@@ -551,74 +551,6 @@ def test_amg_sweeps_auto_cuts_refined_iterations(plate):
     )
 
 
-def test_df_matvec_interpret_reaches_f64_residuals():
-    """df_matvec='interpret' (compensated f32-pair band matvec inside the
-    refined f64 CG, Pallas interpreter mode) must engage on this problem,
-    reach the same 1e-8 relative residual as the emulated-f64 matvec, and
-    agree on displacements to f64-grade accuracy.
-
-    Needs its own mesh: the kernel wants >= 8 * 512-lane rows (~4.1k
-    nodes), finer than the shared 2.1k-node plate fixture."""
-    outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
-    hole = np.array([[1.3, 0.35], [1.7, 0.35], [1.7, 0.65], [1.3, 0.65]])
-    plate = triangulate([outer, hole], 0.0, 0.025)
-    assert plate.num_nodes >= 8 * 512
-    bca = apply_boundary_conditions(plate.coords, _rules())
-    base = compile_problem(
-        plate,
-        bca,
-        MD,
-        SolverOptions(
-            preconditioner="amg", refine="on", cg_rtol=1e-8, df_matvec="off"
-        ),
-    )
-    assert base.timings["df_matvec"] == ""
-    res0 = base.solve()
-    df = compile_problem(
-        plate,
-        bca,
-        MD,
-        SolverOptions(
-            preconditioner="amg",
-            refine="on",
-            cg_rtol=1e-8,
-            df_matvec="interpret",
-        ),
-        amg_setup=base.amg_setup,  # same hierarchy: isolate the matvec
-    )
-    assert df.timings["df_matvec"] == "interpret"
-    res1 = df.solve()
-    assert res0.residual_rel < 1e-8
-    assert res1.residual_rel < 1e-8
-    np.testing.assert_allclose(
-        res1.u, res0.u, atol=1e-9 * np.abs(res0.u).max()
-    )
-
-    # the hybrid operator wires the df kernel through the band part of
-    # band+COO-remainder (_solve_hybrid's dia_op override); forcing
-    # operator='hybrid' on this banded mesh exercises that path
-    hyb = compile_problem(
-        plate,
-        bca,
-        MD,
-        SolverOptions(
-            preconditioner="amg",
-            refine="on",
-            cg_rtol=1e-8,
-            df_matvec="interpret",
-            operator="hybrid",
-        ),
-        amg_setup=base.amg_setup,
-    )
-    assert hyb.mode == "hybrid"
-    assert hyb.timings["df_matvec"] == "interpret"
-    res2 = hyb.solve()
-    assert res2.residual_rel < 1e-8
-    np.testing.assert_allclose(
-        res2.u, res0.u, atol=1e-9 * np.abs(res0.u).max()
-    )
-
-
 def test_amg_sweep_schedule_policy():
     """The shared schedule policy (fem.amg.amg_sweep_schedule): V(3,3)
     only under mixed precision, V(1,1) same-precision, override wins."""
@@ -628,3 +560,109 @@ def test_amg_sweep_schedule_policy():
     assert amg_sweep_schedule(False) == 1
     assert amg_sweep_schedule(True, 1) == 1
     assert amg_sweep_schedule(False, 4) == 4
+
+
+def _level0_operators(plate, layout):
+    """(setup, op, a_op, jac0, lift) for the plate in a V-cycle layout; lift
+    maps a [2, N] field into that layout."""
+    import jax.numpy as jnp
+
+    from magnetite_tpu.fem.dia import (
+        assemble_dia,
+        block_jacobi_inverse_t,
+        build_dia_structure,
+        dia_diag_blocks,
+        dia_matvec,
+    )
+    from magnetite_tpu.fem.element import element_stiffness_matrices
+    from magnetite_tpu.parallel.sweep import lane_dia_matvec
+
+    bca = apply_boundary_conditions(plate.coords, _rules())
+    free = (~bca.u_known).astype(np.float64)
+    setup = build_amg_setup(plate.coords, plate.tris, E, NU, T, free)
+    n = plate.num_nodes
+    s = build_dia_structure(plate.tris, n)
+    ke = element_stiffness_matrices(
+        jnp.asarray(plate.coords), jnp.asarray(plate.tris), E, NU, T
+    )
+    bands = assemble_dia(ke, s.slot_ids, n, s.n_diags)
+    offsets = tuple(int(o) for o in s.offsets)
+    free_t = jnp.asarray(free.T)
+    jac_t = block_jacobi_inverse_t(dia_diag_blocks(bands, offsets), free_t)
+    if layout == "tl":
+        fl = free_t[:, :, None]
+
+        def a_op(v):
+            return fl * lane_dia_matvec(bands, offsets, fl * v)
+
+        def jac0(v):
+            return jnp.stack(
+                [jac_t(v[..., k]) for k in range(v.shape[-1])], axis=-1
+            )
+
+        def lift(r):
+            return jnp.stack([r, 2.0 * r], axis=-1)
+
+    else:
+
+        def a_t(v):
+            return free_t * dia_matvec(bands, offsets, free_t * v)
+
+        if layout == "t":
+            a_op, jac0 = a_t, jac_t
+
+            def lift(r):
+                return r
+
+        else:
+
+            def a_op(v):
+                return a_t(v.T).T
+
+            def jac0(v):
+                return jac_t(v.T).T
+
+            def lift(r):
+                return r.T
+
+    fixed = 1.0 - (free_t[:, :, None] if layout == "tl" else
+                   (free_t if layout == "t" else free_t.T))
+
+    def op(v):
+        return a_op(v) + fixed * v
+
+    return setup, op, a_op, jac0, lift
+
+
+@pytest.mark.parametrize("layout", ["t", "n", "tl"])
+def test_factored_transfer_vcycle_is_adjoint_and_matches_stored_ell(
+    plate, layout
+):
+    """In every layout the factored level-0 transfers P = (I - w D^-1 A) P0
+    and P^T = P0^T (I - A w D^-1) are an exact adjoint pair (so the V-cycle
+    is symmetric), and the cycle equals the one built on the stored
+    smoothed-P ELL pair."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    setup, op, a_op, jac0, lift = _level0_operators(plate, layout)
+    lanes = layout == "tl"
+    fast = make_amg_preconditioner(
+        amg_device_arrays(setup, jnp.float64, lanes=lanes), op, jac0,
+        layout=layout, a_op=a_op,
+    )
+    stored = make_amg_preconditioner(
+        amg_device_arrays(
+            dataclasses.replace(setup, fast0=None), jnp.float64, lanes=lanes
+        ),
+        op, jac0, layout=layout,
+    )
+    rng = np.random.default_rng(7)
+    r1 = lift(jnp.asarray(rng.standard_normal((2, plate.num_nodes))))
+    r2 = lift(jnp.asarray(rng.standard_normal((2, plate.num_nodes))))
+    lhs = float(jnp.sum(fast(r1) * r2))
+    rhs = float(jnp.sum(r1 * fast(r2)))
+    assert abs(lhs - rhs) < 1e-9 * max(abs(lhs), abs(rhs))
+    zf, zs = np.asarray(fast(r1)), np.asarray(stored(r1))
+    np.testing.assert_allclose(zf, zs, atol=1e-11 * np.abs(zs).max())

@@ -180,82 +180,3 @@ def test_sharded_amg_sweeps_override(plate, device_mesh):
     n = plate.num_nodes
     ua, u1 = np.asarray(auto.x)[:, :n], np.asarray(v11.x)[:, :n]
     np.testing.assert_allclose(ua, u1, atol=1e-7 * np.abs(u1).max())
-
-
-def test_sharded_df_matvec_interpret_parity():
-    """The shard-local double-float halo operator
-    (make_halo_df_dia_operator, interpret mode) must match the true f64
-    matvec to f64-grade accuracy through the halo exchange, and the
-    refined sharded solve with df_matvec='interpret' must reach the same
-    answer as the emulated-f64 matvec at rtol 1e-8.
-
-    Runs on a 2-shard mesh: the kernel wants >= 8 * 512-lane rows on the
-    halo-extended SHARD-LOCAL size (~4.1k nodes/shard)."""
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from magnetite_tpu.parallel.dia_shard import (
-        make_halo_df_dia_operator,
-        resolve_df_impl,
-    )
-
-    device_mesh = jax.make_mesh((2,), ("nodes",))
-    outer = np.array([[0.0, 0.0], [3.0, 0.0], [3.0, 1.0], [0.0, 1.0]])
-    hole = np.array([[1.3, 0.35], [1.7, 0.35], [1.7, 0.65], [1.3, 0.65]])
-    plate = triangulate([outer, hole], 0.0, 0.02)
-    bca = _bca(plate)
-    problem = prepare_sharded_dia_problem(
-        plate, bca, MD, device_mesh, dtype=np.float64
-    )
-    assert problem.kind == "dia"
-    assert resolve_df_impl(problem, True, 1e-8, "interpret") == "interpret"
-    assert resolve_df_impl(problem, True, 1e-8, "off") == ""
-    assert resolve_df_impl(problem, False, 1e-8, "interpret") == ""
-
-    # --- matvec parity through the halo exchange ---
-    np_pad = problem.free.shape[1]
-    n = plate.num_nodes
-    rng = np.random.default_rng(3)
-    v = np.zeros((2, np_pad))
-    v[:, :n] = rng.standard_normal((2, n))
-    v_d = jax.device_put(v, NamedSharding(device_mesh, P(None, "nodes")))
-
-    def run(mk):
-        def local(bands, u):
-            return mk(bands)(u)
-
-        return np.asarray(
-            jax.jit(
-                jax.shard_map(
-                    local,
-                    mesh=device_mesh,
-                    in_specs=(P(None, None, None, "nodes"), P(None, "nodes")),
-                    out_specs=P(None, "nodes"),
-                    check_vma=False,
-                )
-            )(problem.bands, v_d)
-        )[:, :n]
-
-    want = run(
-        lambda b: make_halo_dia_operator(
-            b, problem.offsets, problem.halo, "nodes"
-        )
-    )
-    got = run(
-        lambda b: make_halo_df_dia_operator(
-            b, problem.offsets, problem.halo, "nodes", interpret=True
-        )
-    )
-    np.testing.assert_allclose(got, want, atol=1e-10 * np.abs(want).max())
-
-    # --- refined solve parity: df vs emulated f64 ---
-    base, _ = sharded_dia_pcg_solve(
-        problem, rtol=1e-8, refined=True, df_matvec="off"
-    )
-    df, _ = sharded_dia_pcg_solve(
-        problem, rtol=1e-8, refined=True, df_matvec="interpret"
-    )
-    assert bool(base.converged) and bool(df.converged)
-    u0 = np.asarray(base.x)[:, :n]
-    u1 = np.asarray(df.x)[:, :n]
-    np.testing.assert_allclose(u1, u0, atol=1e-9 * np.abs(u0).max())

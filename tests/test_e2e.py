@@ -94,7 +94,6 @@ def test_cli_end_to_end(tmp_path):
     """Drive the real CLI surface: tensile example, CSV outputs."""
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["MAGNETITE_FORCE_CPU"] = "1"
     proc = subprocess.run(
         [
             sys.executable,

@@ -253,3 +253,32 @@ def test_dense_coarse_solve_is_exact(metadata):
     e = apply_dense_inverse(last.dense_inv, r)
     back = np.asarray(last.op(e))
     np.testing.assert_allclose(back, np.asarray(r), rtol=1e-8, atol=1e-8 * np.abs(np.asarray(r)).max())
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_dense_coarse_inverse_is_native_f64(metadata, wrap):
+    """f64 hierarchies invert the coarsest operator in f64 itself: the
+    inverse matches numpy's to f64 roundoff and stays symmetric."""
+    import jax.numpy as jnp
+    from magnetite_tpu.fem.multigrid import dense_coarse_inverse
+    from magnetite_tpu.fem.solve import _grid, _reduce_stencil
+    from magnetite_tpu.fem.stencil import assemble_stencil_fused
+    from magnetite_tpu.meshing.generators import plate_with_hole_mesh, rect_mesh
+
+    mesh = plate_with_hole_mesh(6, 16) if wrap else rect_mesh(10, 8)
+    rows, cols = mesh.grid_shape
+    u_known = np.zeros((mesh.num_nodes, 2), dtype=bool)
+    u_known[np.isclose(mesh.coords[:, 0], mesh.coords[:, 0].min())] = True
+    raw = assemble_stencil_fused(
+        jnp.asarray(mesh.coords), jnp.asarray(mesh.tris),
+        metadata.youngs_modulus, metadata.poisson_ratio,
+        metadata.part_thickness, rows, cols, wrap,
+    )
+    free = _grid(jnp.asarray(~u_known, jnp.float64), rows, cols)
+    reduced = _reduce_stencil(raw, free, wrap)
+    inv = dense_coarse_inverse(reduced, wrap)
+    assert inv.dtype == jnp.float64
+    want = np.linalg.inv(stencil_to_dense(np.asarray(reduced), wrap))
+    got = np.asarray(inv)
+    np.testing.assert_allclose(got, want, atol=1e-10 * np.abs(want).max())
+    np.testing.assert_allclose(got, got.T, atol=1e-10 * np.abs(got).max())

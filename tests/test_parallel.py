@@ -273,7 +273,7 @@ def test_sharded_2d_batch_sweep_matches_individual(metadata):
 def test_material_sweep_matches_individual_solves(metadata):
     """True material sweep: per-lane (E, nu, t) via the basis-stencil
     decomposition, exact per-lane multigrid. Parity vs one-at-a-time
-    solve_system calls (VERDICT bar: nu in [0.25, 0.35] to 1e-5)."""
+    solve_system calls (bar: nu in [0.25, 0.35] to 1e-5)."""
     from magnetite_tpu.bc import BCArrays
     from magnetite_tpu.config import ModelMetadata
     from magnetite_tpu.parallel.sweep import material_sweep_solve
@@ -403,7 +403,7 @@ def test_material_sweep_shards_over_lanes(metadata):
 
 
 def test_unstructured_amg_sweep_matches_individual_solves(metadata):
-    """VERDICT r3 item 3: fast sweeps on ARBITRARY meshes. One shared AMG
+    """Fast sweeps on ARBITRARY meshes. One shared AMG
     hierarchy preconditions every k_scale lane exactly (V((sK))^-1 =
     (1/s)V(K)^-1), so lockstep iteration counts stay mesh-independent.
     Parity per lane vs the per-variant single solve, and TRUE relative

@@ -183,7 +183,7 @@ def test_pipeline_rejects_unsupported_operators(plate, device_mesh):
 
 
 def test_pipeline_single_device_mesh(plate):
-    """A 1-device mesh runs the same code path (the real-TPU layout here)."""
+    """A 1-device mesh runs the same code path (the single-GPU layout)."""
     bca = _plate_bca(plate)
     dm = jax.make_mesh((1,), ("shard",))
     res_1 = solve_system(plate, bca, MD, SolverOptions(cg_rtol=1e-10))

@@ -90,6 +90,26 @@ def test_refine_on_irregular_operators(metadata, operator):
     assert rel_u < 1e-8
 
 
+@pytest.mark.parametrize("operator", ["stencil", "dia"])
+def test_refined_stress_is_f64_grade(metadata, operator):
+    """Refined solves recover stress in f64: an f32 cast of u loses
+    ~eps_f32 * extent / h of it to the strain differences across an
+    element (the single-device and sharded paths must agree)."""
+    mesh, bca = _plate_case(16, 32)
+    res = solve_system(
+        mesh, bca, metadata,
+        SolverOptions(dtype="float32", cg_rtol=1e-10, refine="on",
+                      operator=operator),
+    )
+    ref = solve_system(
+        mesh, bca, metadata,
+        SolverOptions(dtype="float64", cg_rtol=1e-12, operator=operator),
+    )
+    assert res.sigma.dtype == np.float64
+    rel = np.abs(res.sigma - ref.sigma).max() / np.abs(ref.sigma).max()
+    assert rel < 1e-7
+
+
 def test_refine_auto_engages_below_f32_floor(metadata):
     mesh, bca = _plate_case(16, 32)
     problem = compile_problem(

@@ -141,3 +141,33 @@ def test_reaction_forces_balance(metadata):
     total = result.f.sum(axis=0)
     scale = np.abs(result.f).max()
     np.testing.assert_allclose(total / scale, 0.0, atol=1e-8)
+
+
+def test_dense_mode_pins_matmul_precision(metadata):
+    """Every contraction of the dense-mode core asks for full precision (an
+    f32 matmul could otherwise run in TF32 on the GPU)."""
+    import jax
+
+    from magnetite_tpu.fem.solve import compile_problem
+
+    mesh = rect_mesh(4, 3)
+    problem = compile_problem(
+        mesh, tensile_bcs_for_rect(mesh.coords), metadata,
+        SolverOptions(dtype="float32", dense_cutoff=10**6, cg_rtol=1e-5),
+    )
+    assert problem.mode == "dense"
+
+    def dots(jaxpr):  # dot_general precisions, nested jaxprs included
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn.params["precision"]
+            for param in eqn.params.values():
+                for sub in param if isinstance(param, (list, tuple)) else [param]:
+                    inner = getattr(sub, "jaxpr", None)
+                    if inner is not None:
+                        yield from dots(getattr(inner, "jaxpr", inner))
+
+    found = list(dots(jax.make_jaxpr(problem.core)(*problem.args).jaxpr))
+    assert found
+    highest = jax.lax.Precision.HIGHEST
+    assert all(p == (highest, highest) for p in found), found
